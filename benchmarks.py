@@ -13,7 +13,9 @@ workflow the reference gets from pytest-benchmark autosave
 (reference: pytest.ini:7, Timings.py:19-39).  Compare runs with
 ``python timings_report.py --compare``.
 
-Usage: python benchmarks.py [--kernels scipy,xla,pallas] [--fast] [--save]
+Every row names the JAX device it ran on; ``scipy`` rows time the host.
+
+Usage: python benchmarks.py [--kernels scipy,xla] [--fast] [--save]
 """
 
 import argparse
@@ -27,6 +29,7 @@ import scipy.sparse as sps
 
 from csr_tpu import CSR
 from csr_tpu.kernels import use_kernel
+from csr_tpu.utils.compile_cache import enable_compile_cache
 
 HISTORY_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
                            "bench_history")
@@ -40,18 +43,14 @@ def make_csr(nrows, ncols, density, rng):
 
 
 def timeit(fn, min_repeat=3, max_time=2.0):
-    fn()  # warmup / compile
+    import jax
+
+    jax.block_until_ready(fn())  # warmup / compile
     times = []
     t_total = 0.0
     while len(times) < min_repeat or t_total < max_time / 4:
         t0 = time.perf_counter()
-        r = fn()
-        try:
-            import jax
-
-            jax.block_until_ready(r)
-        except Exception:
-            pass
+        jax.block_until_ready(fn())
         dt = time.perf_counter() - t0
         times.append(dt)
         t_total += dt
@@ -61,8 +60,12 @@ def timeit(fn, min_repeat=3, max_time=2.0):
 
 
 def report(group, kernel, param, ms):
+    import jax
+
+    dev = jax.devices()[0]
     row = {"group": group, "kernel": kernel, "param": param,
-           "ms_per_op": round(ms, 4)}
+           "ms_per_op": ms, "platform": dev.platform,
+           "device_kind": dev.device_kind}
     _results.append(row)
     print(json.dumps(row))
 
@@ -97,13 +100,14 @@ def save_history(results):
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--kernels", default="scipy,xla,pallas")
+    ap.add_argument("--kernels", default="scipy,xla")
     ap.add_argument("--fast", action="store_true")
     ap.add_argument("--save", action="store_true",
                     help="append this run to bench_history/")
     ap.add_argument("--only", default=None,
                     help="run only groups whose name contains this substring")
     args = ap.parse_args()
+    enable_compile_cache()
     kernels = args.kernels.split(",")
     rng = np.random.default_rng(42)
     only = args.only
@@ -146,7 +150,7 @@ def main():
                 report("MultAB-Size", k, size, timeit(lambda: As.multiply(Bs)))
 
     # ESC-regime sizes: dense intermediates exceed the dense-routing
-    # budget, so the pallas backend's SpGEMM runs expand-sort-compress
+    # budget, so the xla backend's SpGEMM runs expand-sort-compress
     # (csr_tpu/ops/spgemm.py) — the reference's MultAB-Size sweep
     # (tests/test_bench_multiply.py:46-63) has no points here.  nnz/row is
     # held at ~50 so the expansion stays ~size * 2500 product terms.
@@ -155,15 +159,13 @@ def main():
         Ae = make_csr(size, size, 50.0 / size, rng)
         Be = make_csr(size, size, 50.0 / size, rng)
         for k in kernels:
-            if k == "xla":
-                continue  # XLA backend would densify far past the budget
             with use_kernel(k):
                 ms = timeit(lambda: Ae.multiply(Be))
             gnnz = (Ae.nnz * 50.0) / (ms * 1e-3) / 1e9  # expanded terms/s
             report("MultAB-ESC", k, size, ms)
             print(json.dumps({"group": "MultAB-ESC-rate", "kernel": k,
                               "param": size,
-                              "gterms_s": round(gnnz, 3)}))
+                              "gterms_s": gnnz}))
 
     if args.save:
         save_history(_results)

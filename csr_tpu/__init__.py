@@ -1,11 +1,11 @@
 """
-csr_tpu — TPU-native compressed sparse row matrices.
+csr_tpu — compressed sparse row matrices on JAX devices.
 
-A from-scratch, TPU-first sparse linear algebra framework with the
-capabilities of the reference ``csr`` package (reference: csr/__init__.py):
-a CSR matrix type with optional values, structure/transform operations, and
-pluggable compute kernels — here backed by JAX/XLA and hand-written Pallas
-TPU kernels, scaling over device meshes via row partitioning.
+A sparse linear algebra framework with the capabilities of the reference
+``csr`` package (reference: csr/__init__.py): a CSR matrix type with
+optional values, structure/transform operations, and pluggable compute
+kernels — here backed by JAX/XLA, scaling over device meshes via row
+partitioning.
 """
 
 from .csr import CSR  # noqa: F401

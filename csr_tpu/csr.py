@@ -1,11 +1,11 @@
 """
-TPU-native compressed sparse row matrices.
+Device-resident compressed sparse row matrices.
 
 ``CSR`` mirrors the public API of the reference implementation
-(reference: csr/csr.py:46-692) but is built for JAX on TPU:
+(reference: csr/csr.py:46-692) but is built for JAX:
 
 * the three data arrays (``rowptrs``, ``colinds``, ``values``) are
-  device-resident ``jax.Array``s living in HBM;
+  device-resident ``jax.Array``s;
 * ``CSR`` is a registered JAX pytree, so it can be passed through
   ``jax.jit`` / ``jax.vmap`` / ``shard_map`` boundaries.  This replaces the
   reference's dual Python/Numba "structref" identity
@@ -13,8 +13,8 @@ TPU-native compressed sparse row matrices.
 * shape metadata (``nrows``, ``ncols``, ``nnz``) is static Python data, so
   every operation traces with static shapes as XLA requires;
 * compute is dispatched through the pluggable kernel API
-  (see :mod:`csr_tpu.kernels`), with backends for pure XLA, Pallas TPU
-  kernels, and a SciPy host oracle.
+  (see :mod:`csr_tpu.kernels`), with a pure-XLA backend and a SciPy host
+  oracle.
 
 The value array is optional: a matrix can store structure only, in which
 case every stored entry has implicit value 1.0
@@ -53,7 +53,7 @@ def _as_index_array(x, dtype):
 
 class CSR:
     """
-    Simple compressed sparse row matrix for TPU.
+    Simple compressed sparse row matrix on a JAX device.
 
     This is like :class:`scipy.sparse.csr_matrix`, with a few useful
     differences (mirroring the reference, csr/csr.py:46-77):
@@ -61,7 +61,7 @@ class CSR:
     * The value array is optional, for cases in which only the matrix
       structure is required.
     * All arrays are JAX device arrays; operations execute on the
-      configured backend ("kernel"), the default being TPU.
+      configured backend ("kernel"), by default ``xla``.
     * Instances are JAX pytrees and can cross ``jit`` boundaries.
 
     Attributes:
@@ -73,9 +73,8 @@ class CSR:
         values(jax.Array or None): the values, shape ``(nnz,)``.
     """
 
-    __slots__ = ("nrows", "ncols", "rowptrs", "colinds", "_values", "_host",
-                 "_mb_layout_cache", "_mb_layout_t_cache", "_shard_cache",
-                 "_mb_large_cache", "_mb_large_t_cache")
+    __slots__ = ("nrows", "ncols", "rowptrs", "colinds", "_values",
+                 "_shard_cache")
 
     def __init__(self, nrows, ncols, nnz, rps, cis, vs, _cast=True):
         assert nrows >= 0
@@ -86,22 +85,6 @@ class CSR:
         self.nrows = int(nrows)
         self.ncols = int(ncols)
 
-        # keep host copies when the data arrived as numpy: kernel handle
-        # creation (micro-block packing) runs on the host, and pulling
-        # device buffers back is expensive on remote TPU runtimes
-        if (
-            not isinstance(rps, jax.Array)
-            and not isinstance(cis, jax.Array)
-            and (vs is None or not isinstance(vs, jax.Array))
-        ):
-            self._host = (
-                np.asarray(rps),
-                np.asarray(cis),
-                None if vs is None else np.asarray(vs),
-            )
-        else:
-            self._host = None
-
         if _cast:
             cis = _as_index_array(cis, COLIND_DTYPE)
             rps = _as_index_array(rps, ptr_dtype(nnz))
@@ -109,7 +92,7 @@ class CSR:
                 if not isinstance(vs, jax.Array):
                     vs = np.asarray(vs)
                     if vs.dtype == np.float64 and not dtypes.x64_enabled():
-                        # TPU default: f64 host data narrows to f32 unless
+                        # f64 host data narrows to f32 unless
                         # jax_enable_x64 is set (see csr_tpu.dtypes)
                         vs = vs.astype(np.float32)
                 vs = jnp.asarray(vs)
@@ -137,7 +120,6 @@ class CSR:
     @values.setter
     def values(self, vs):
         # reference semantics: csr/csr.py:225-242
-        self._host = None
         if vs is None:
             self._values = None
             return
@@ -310,7 +292,7 @@ class CSR:
         """Convert a ``jax.experimental.sparse.BCOO`` matrix (JAX's native
         sparse format) to a device CSR.
 
-        The TPU-era analog of the reference's scipy interop
+        The JAX-side analog of the reference's scipy interop
         (reference: csr/csr.py:171-192): duplicate coordinates must already
         be summed (``mat.sum_duplicates()``)."""
         assert mat.ndim == 2, "only 2-D BCOO supported"
@@ -421,7 +403,6 @@ class CSR:
         )
         self.colinds = cis
         self._values = vs
-        self._host = None
 
     def subset_rows(self, begin, end):
         """Subset the rows in this matrix (reference: csr/csr.py:330-345)."""
@@ -496,7 +477,6 @@ class CSR:
         else:
             raise ValueError("unknown normalization: " + normalization)
         self._values = vs
-        self._host = None
         return stats
 
     def transpose(self, include_values=True):
@@ -593,11 +573,10 @@ class CSR:
         Multiply the transpose of this matrix by a dense vector:
         :math:`A^{T}\\vec{v}`.
 
-        A TPU-era extension of the reference API, which reaches the same
-        product via ``transpose().mult_vec(v)``
-        (reference: csr/kernels/numba/multiply.py:41-57); here the
-        transposed device layout is built once and cached, so repeated
-        calls run the tuned kernel directly.
+        An extension of the reference API, which reaches the same product
+        via ``transpose().mult_vec(v)``
+        (reference: csr/kernels/numba/multiply.py:41-57); here it is one
+        kernel call with no transposed copy of the matrix.
 
         Args:
             v(array-like): a vector of length ``nrows``.
@@ -626,9 +605,8 @@ class CSR:
         """
         Multiply this matrix by a dense matrix (SpMM): ``A @ B``.
 
-        A TPU-era extension of the reference API (which only exposes SpMV
-        and sparse-sparse products): sparse x dense-tall is the
-        MXU-friendly workhorse on TPU.
+        An extension of the reference API, which only exposes SpMV and
+        sparse-sparse products.
 
         Args:
             b(array-like): a dense matrix of shape ``(ncols, n)``.
@@ -660,7 +638,6 @@ class CSR:
         self.rowptrs = rps
         self.colinds = cis
         self._values = vs
-        self._host = None
 
     def _shard_rows(self, tgt_nnz):
         """Shard by rows so each shard has at most ``tgt_nnz`` stored
@@ -670,10 +647,9 @@ class CSR:
 
         The shard list is cached on this matrix (identity-keyed on the
         three buffers + the target), so repeated over-capacity multiplies
-        reuse the same shard objects — and therefore each shard's cached
-        device layout: the second ``mult_vec`` on a >max_nnz matrix packs
-        nothing.  The reference gets the same effect by reusing B's handle
-        across shards (reference: csr/csr.py:565)."""
+        reuse the same shard objects instead of slicing the matrix again
+        (the reference reuses B's handle across shards in the same
+        spirit, reference: csr/csr.py:565)."""
         assert tgt_nnz > 0
         cached = getattr(self, "_shard_cache", None)
         if (
@@ -720,12 +696,10 @@ class CSR:
         (reference: csr/csr.py:652-661)."""
         warnings.warn("drop_values is deprecated", DeprecationWarning)
         self._values = None
-        self._host = None
 
     def fill_values(self, value):
         """Fill values with a constant **in place**, adding a value array to
         structure-only matrices (reference: csr/csr.py:663-675)."""
-        self._host = None
         if self.values is not None:
             self._values = jnp.full_like(self.values, value)
         else:
@@ -762,7 +736,7 @@ class CSR:
 
 
 # ---------------------------------------------------------------------------
-# pytree registration — the TPU analog of the reference's Numba structref
+# pytree registration — the JAX analog of the reference's Numba structref
 # wiring (reference: csr/_wiring.py:14-17): it makes CSR a first-class citizen
 # of jit/vmap/shard_map instead of nopython mode.
 
@@ -780,7 +754,6 @@ def _csr_unflatten(aux, children):
     obj.rowptrs = rps
     obj.colinds = cis
     obj._values = vs
-    obj._host = None
     return obj
 
 

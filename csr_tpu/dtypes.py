@@ -1,15 +1,16 @@
 """
-Data-type policy for TPU CSR matrices.
+Data-type policy for device CSR matrices.
 
 Mirrors the reference dtype rules (reference: csr/csr.py:88-95): column
 indices are always ``int32``; row pointers are ``int32`` unless the matrix
 has more than ``INT32_MAX`` stored entries, in which case they are
 ``int64``; values may be any floating dtype.
 
-On TPU, float64 is emulated and slow; we therefore default to the dtype of
-the data we are given (usually float32) instead of forcing float64 the way
-the reference forces f8 for MKL (reference: csr/kernels/mkl/handle.py:69).
-Enable ``jax_enable_x64`` for float64 parity testing.
+JAX narrows float64 to float32 unless ``jax_enable_x64`` is set, so values
+keep the dtype of the data we are given (usually float32) instead of being
+forced to float64 the way the reference forces f8 for MKL
+(reference: csr/kernels/mkl/handle.py:69).  Enable ``jax_enable_x64`` for
+float64 work.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ def x64_scope(needed: bool = True):
 def default_value_dtype():
     """The dtype produced for implicit (structure-only) values.
 
-    The reference produces float64 (csr/csr.py:251); on TPU we produce
-    float64 only when x64 is enabled, float32 otherwise.
+    The reference produces float64 (csr/csr.py:251); here float64 only
+    when x64 is enabled, float32 otherwise.
     """
     return jnp.float64 if x64_enabled() else jnp.float32

@@ -8,30 +8,26 @@ Interface"):
 ``to_handle, from_handle, release_handle, order_columns,
 mult_vec, mult_ab, mult_abt, max_nnz``
 
-``to_handle`` performs backend-specific preprocessing: for the TPU backends
-this is device layout work (micro-block packing, padding plans, row-id
-expansion) rather than the reference's MKL handle creation.  ``max_nnz`` is
-the per-operation capacity; matrices above it are row-sharded by the caller
-(reference: csr/csr.py:558-567) — for TPU kernels it reflects the
-per-device HBM budget.
+``to_handle`` performs backend-specific preprocessing (for ``xla``, the
+expansion of row pointers to per-entry row ids) in place of the
+reference's MKL handle creation.  ``max_nnz`` is the per-operation
+capacity; matrices above it are row-sharded by the caller
+(reference: csr/csr.py:558-567).
 
 Available kernels:
 
 ``xla``
-    Pure JAX/XLA implementation.  Always available, on any backend; the
-    portable reference implementation (plays the role of the reference's
-    ``numba`` kernel).
-
-``pallas``
-    Hand-written Pallas TPU kernels (the analog of the reference's ``mkl``
-    vendor kernel).  Default on TPU.
+    Pure JAX/XLA implementation, the default on every backend (CPU and
+    GPU).  It plays the role of both the reference's ``numba`` kernel and
+    its ``mkl`` vendor kernel; both names are aliases for it.
 
 ``scipy``
     SciPy host oracle, for testing and benchmarking only (reference:
     csr/kernels/scipy.py).
 
-Selection: the ``CSR_KERNEL`` environment variable, else ``pallas`` when a
-TPU is present, else ``xla`` (reference: csr/kernels/__init__.py:100-117).
+Selection: the ``CSR_KERNEL`` environment variable, else ``xla``
+(reference: csr/kernels/__init__.py:100-117).  An unknown name raises
+:class:`ImportError` naming the available kernels.
 """
 
 from __future__ import annotations
@@ -142,11 +138,14 @@ def use_kernel(name):
         set_kernel(old)
 
 
+#: the kernel modules of this package
+AVAILABLE = ("scipy", "xla")
+
 _ALIASES = {
     # names from the reference map onto our backends so reference users'
     # CSR_KERNEL settings keep working
     "numba": "xla",
-    "mkl": "pallas",
+    "mkl": "xla",
 }
 
 
@@ -161,8 +160,13 @@ def get_kernel(name=None):
     name = _ALIASES.get(name, name)
     kern = kernels.get(name, None)
     if not kern:
-        mod_name = f"{__name__}.{name}"
-        kern = import_module(mod_name)
+        if name not in AVAILABLE:
+            raise ImportError(
+                f"unknown kernel {name!r}; available kernels: "
+                f"{', '.join(AVAILABLE)} (reference aliases: "
+                f"{', '.join(_ALIASES)})"
+            )
+        kern = import_module(f"{__name__}.{name}")
         kernels[name] = kern
     return kern
 
@@ -173,21 +177,8 @@ def _initialize(name=None):
         warnings.warn("default kernel already initialized")
 
     if not name:
-        name = os.environ.get("CSR_KERNEL")
-    if name:
-        __cached_default = get_kernel(name)
-        return
-
-    import jax
-
-    try:
-        on_tpu = jax.default_backend() not in ("cpu",)
-    except Exception:
-        on_tpu = False
-    if on_tpu:
-        __cached_default = get_kernel("pallas")
-    else:
-        __cached_default = get_kernel("xla")
+        name = os.environ.get("CSR_KERNEL") or "xla"
+    __cached_default = get_kernel(name)
 
 
 def _default_kernel():

@@ -66,14 +66,14 @@ def mult_vec(A, v):
 
 
 def mult_vec_t(A, v):
-    """Transpose SpMV ``A^T @ v`` (TPU-era contract extension)."""
+    """Transpose SpMV ``A^T @ v`` (a contract extension)."""
     import jax.numpy as jnp
 
     return jnp.asarray(A.T @ np.asarray(v))
 
 
 def mult_dense(A, B):
-    """SpMM with a dense right-hand side (TPU-era contract extension)."""
+    """SpMM with a dense right-hand side (a contract extension)."""
     import jax.numpy as jnp
 
     return jnp.asarray(A @ np.asarray(B))

@@ -1,10 +1,9 @@
 """
-Pure-XLA kernel backend.
+Pure-XLA kernel backend: the default on every backend.
 
-The portable TPU/CPU/GPU compute backend, playing the role the ``numba``
-kernel plays in the reference (reference: csr/kernels/numba/__init__.py):
-self-contained, always available, correct everywhere.  The Pallas backend
-(:mod:`csr_tpu.kernels.pallas`) is the tuned TPU fast path.
+It plays the role the ``numba`` kernel plays in the reference
+(reference: csr/kernels/numba/__init__.py): self-contained, always
+available, and compiled by XLA for whichever device JAX runs on.
 
 Design notes
 ------------
@@ -12,12 +11,14 @@ Design notes
 * SpMV is ``segment_sum(values * v[colinds], row_ids)`` — the XLA-native
   formulation of the reference's flat nnz loop
   (reference: csr/kernels/numba/__init__.py:55-67).
-* SpGEMM densifies the *output*: TPUs do sparse math best by turning it
-  into dense math at the right granularity.  ``C = A @ B`` is computed as a
-  scatter-add of ``values_i * B[col_i, :]`` into a dense ``(nrows, B.ncols)``
-  accumulator, then compacted back to CSR.  This replaces the reference's
-  SMMP symbolic/numeric passes (reference: csr/kernels/numba/multiply.py:60-129)
-  whose linked-list column marking is hostile to vector hardware.
+* SpGEMM densifies the *output* while the dense intermediates fit
+  :func:`csr_tpu.ops.spgemm.dense_fits`: ``C = A @ B`` is a scatter-add of
+  ``values_i * B[col_i, :]`` into a dense ``(nrows, B.ncols)``
+  accumulator, compacted back to CSR.  Larger products run
+  expand-sort-compress (:mod:`csr_tpu.ops.spgemm`).  Both replace the
+  reference's SMMP symbolic/numeric passes
+  (reference: csr/kernels/numba/multiply.py:60-129), whose linked-list
+  column marking does not vectorize.
 * Handles carry the expanded COO row-id vector, the analog of the
   reference's preprocessing in ``to_handle``.
 """
@@ -104,8 +105,8 @@ def _spmv_t(values, colinds, row_ids, v, ncols: int, out_dtype):
 
 
 def mult_vec_t(h, v):
-    """Transpose SpMV ``A^T @ v`` (TPU-era contract extension; the
-    reference reaches it structurally via transpose + mult_vec,
+    """Transpose SpMV ``A^T @ v`` (a contract extension; the reference
+    reaches it structurally via transpose + mult_vec,
     reference: csr/kernels/numba/multiply.py:41-57)."""
     c = h.csr
     vals = c._required_values()
@@ -128,28 +129,35 @@ def _densify(vals, cols, rids, nrows: int, ncols: int, out_dtype):
     return out.at[rids, cols].add(vals.astype(out_dtype), indices_are_sorted=True)
 
 
+@functools.partial(jax.jit, static_argnames=("nnz",))
+def _dense_compact(dense, nnz: int):
+    mask = dense != 0
+    rids, cols = jnp.nonzero(mask, size=nnz)
+    vals = dense[rids, cols]
+    rps = jnp.zeros(dense.shape[0] + 1, dtype=big_int())
+    counts = jnp.sum(mask, axis=1, dtype=big_int())
+    rps = rps.at[1:].set(jnp.cumsum(counts))
+    return rps, cols.astype(dtypes.COLIND_DTYPE), vals
+
+
 def dense_to_csr(dense):
     """Compact a dense matrix to CSR, keeping nonzero entries.
 
     Matches the reference's post-multiply ``_filter_zeros`` semantics
     (reference: csr/csr.py:553-556): the result stores exactly the
-    nonzero entries, in row-major (column-sorted) order.
+    nonzero entries, in row-major (column-sorted) order.  The output nnz
+    is synced to the host once; the compaction is one jitted program.
     """
     from csr_tpu import CSR
 
     nrows, ncols = dense.shape
-    mask = dense != 0
-    nnz = int(jnp.sum(mask))
-    rids, cols = jnp.nonzero(mask, size=nnz)
-    vals = dense[rids, cols]
-    rps = jnp.zeros(nrows + 1, dtype=big_int())
-    counts = jnp.sum(mask, axis=1, dtype=big_int())
-    rps = rps.at[1:].set(jnp.cumsum(counts))
-    return CSR(nrows, ncols, nnz, rps, cols.astype(dtypes.COLIND_DTYPE), vals)
+    nnz = int(jnp.sum(dense != 0))
+    rps, cols, vals = _dense_compact(dense, nnz)
+    return CSR(nrows, ncols, nnz, rps, cols, vals)
 
 
 def mult_dense(h, B):
-    """SpMM ``A @ B`` with dense ``B`` (TPU-era contract extension)."""
+    """SpMM ``A @ B`` with dense ``B`` (a contract extension)."""
     c = h.csr
     vals = c._required_values()
     B = jnp.asarray(B)

@@ -4,7 +4,7 @@ ctypes bindings for the native host CSR utilities.
 The native library is the framework's C++ component (the role of the
 reference's cffi-built MKL shim, reference: tasks.py:24-55 +
 csr/kernels/mkl/_api.py): it accelerates host-side construction paths that
-run on numpy buffers before data ships to the TPU.  The library is built
+run on numpy buffers before data ships to the device.  The library is built
 on demand with g++ (see :mod:`csr_tpu.native.build`) and cached next to
 this file; every caller has a pure-Python/XLA fallback, so a missing
 toolchain only costs speed.
@@ -124,24 +124,6 @@ def transpose(nrows, ncols, rowptrs, colinds, values=None):
     return t_rps, t_cis, t_vls
 
 
-def transpose_host(nrows, ncols, rowptrs, colinds, values=None):
-    """CSR transpose on host arrays: native counting sort when the library
-    is available, a numpy stable argsort otherwise.  Always returns the
-    ``(t_rowptrs, t_colinds, t_values)`` triple (the TPU analog of the
-    reference's two-pass count-then-scatter, csr/structure.py:172-237)."""
-    t = transpose(nrows, ncols, rowptrs, colinds, values)
-    if t is not None:
-        return t
-    rp = np.asarray(rowptrs)
-    cis = np.asarray(colinds)
-    order = np.argsort(cis, kind="stable")
-    rids = np.repeat(np.arange(nrows, dtype=np.int32), np.diff(rp))
-    t_rps = np.zeros(ncols + 1, np.int64)
-    np.cumsum(np.bincount(cis, minlength=ncols), out=t_rps[1:])
-    t_vls = None if values is None else np.asarray(values)[order]
-    return t_rps, rids[order].astype(np.int32), t_vls
-
-
 def sort_rows(nrows, rowptrs, colinds, values=None):
     """Native in-place per-row column sort; mutates colinds/values.
     Returns True on success."""
@@ -160,93 +142,3 @@ def sort_rows(nrows, rowptrs, colinds, values=None):
     else:
         return False
     return True
-
-
-def _mb_bind(lib):
-    i64, i64p = ctypes.c_int64, ctypes.POINTER(ctypes.c_int64)
-    i32p = ctypes.POINTER(ctypes.c_int32)
-    f32p = ctypes.POINTER(ctypes.c_float)
-    u16p = ctypes.POINTER(ctypes.c_uint16)
-    lib.csrt_mb_plan.restype = i64
-    lib.csrt_mb_plan.argtypes = [i64, i64, i64, i64p, i32p, i64, i64, i64]
-    lib.csrt_mb_fill.restype = i64
-    lib.csrt_mb_fill.argtypes = [i64, i64, i64, i64p, i32p, f32p, i64, i64,
-                                 i64, i64, f32p, u16p, i32p]
-    lib.csrt_mb_plan3.restype = i64
-    lib.csrt_mb_plan3.argtypes = [i64, i64, i64, i64p, i32p, i64, i64, i64p]
-
-
-def plan_microrows(nrows, ncols, rowptrs, cols, window: int,
-                   pad_mult: int, pair: int = 1):
-    """Native micro-row count for a given (window, pair) layout choice
-    (for the layout chooser), or None when the native library is
-    unavailable."""
-    # the native group mask arithmetic (gmask = pair-1) is only valid for
-    # powers of two; reject bad callers here rather than miscounting
-    assert pair in (1, 2, 4), pair
-    lib = get_lib()
-    if lib is None or not hasattr(lib, "csrt_mb_plan"):
-        return None
-    _mb_bind(lib)
-    rowptrs = np.ascontiguousarray(rowptrs, np.int64)
-    cols = np.ascontiguousarray(cols, np.int32)
-    m = lib.csrt_mb_plan(
-        len(cols), nrows, ncols, _i64p(rowptrs), _i32p(cols),
-        int(window).bit_length() - 1, pad_mult, pair,
-    )
-    return None if m < 0 else int(m)
-
-
-def plan_microrows3(nrows, ncols, rowptrs, cols, window: int, pad_mult: int):
-    """Native micro-row counts for pair = (1, 2, 4) at one window width in
-    a single sort+walk, or None when unavailable."""
-    lib = get_lib()
-    if lib is None or not hasattr(lib, "csrt_mb_plan3"):
-        return None
-    _mb_bind(lib)
-    rowptrs = np.ascontiguousarray(rowptrs, np.int64)
-    cols = np.ascontiguousarray(cols, np.int32)
-    out3 = np.empty(3, np.int64)
-    rc = lib.csrt_mb_plan3(
-        len(cols), nrows, ncols, _i64p(rowptrs), _i32p(cols),
-        int(window).bit_length() - 1, pad_mult, _i64p(out3),
-    )
-    return None if rc < 0 else tuple(int(v) for v in out3)
-
-
-def build_microblocks(nrows, ncols, rowptrs, cols, values, m_round: int,
-                      window: int, pad_mult: int, pair: int = 1):
-    """Native micro-block layout build (see csr_host.cpp csrt_mb_*).
-
-    Returns ``(vals, meta, rbcb, m)`` numpy arrays with ``m_pad`` rows
-    rounded up to ``m_round``, or ``None`` when the native library is
-    unavailable or the matrix exceeds the packing range."""
-    lib = get_lib()
-    if lib is None or not hasattr(lib, "csrt_mb_plan"):
-        return None
-    _mb_bind(lib)
-    rowptrs = np.ascontiguousarray(rowptrs, np.int64)
-    cols = np.ascontiguousarray(cols, np.int32)
-    nnz = len(cols)
-    cshift = int(window).bit_length() - 1
-    m = lib.csrt_mb_plan(nnz, nrows, ncols, _i64p(rowptrs), _i32p(cols),
-                         cshift, pad_mult, pair)
-    if m < 0:
-        return None
-    m_pad = -(-max(int(m), 1) // m_round) * m_round
-    vals = np.zeros((m_pad, 128), np.float32)
-    meta = np.zeros((m_pad, 128), np.uint16)
-    rbcb = np.zeros(m_pad, np.int32)
-    if values is not None:
-        values = np.ascontiguousarray(values, np.float32)
-        vp = _fp(values)
-    else:
-        vp = None
-    m2 = lib.csrt_mb_fill(
-        nnz, nrows, ncols, _i64p(rowptrs), _i32p(cols), vp, cshift, pad_mult,
-        pair, m_pad,
-        _fp(vals), meta.ctypes.data_as(ctypes.POINTER(ctypes.c_uint16)),
-        _i32p(rbcb),
-    )
-    assert m2 == m, (m2, m)
-    return vals, meta, rbcb, int(m)

@@ -1,7 +1,7 @@
 """
-Pallas TPU kernels and their data layouts.
+Device algorithms behind the kernel contract.
 
-The hot sparse operations live here: micro-block SpMV/SpMM and the
-densified SpGEMM.  :mod:`csr_tpu.kernels.pallas` wires them into the
-kernel contract.
+:mod:`csr_tpu.ops.spgemm` holds the bounded-memory expand-sort-compress
+SpGEMM that :mod:`csr_tpu.kernels.xla` runs when a product's dense
+intermediates would not fit.
 """

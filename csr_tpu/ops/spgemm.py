@@ -1,12 +1,10 @@
 """
 Capacity-safe sparse x sparse multiply (ESC formulation).
 
-The dense-routing SpGEMM (:mod:`csr_tpu.kernels.pallas`,
-:mod:`csr_tpu.kernels.xla`) densifies B and the product C — the fastest
-formulation on TPU *when those fit in memory* (docs/perf.md: the MXU's
-dense throughput beats every sparse formulation above density ~0.002).
-This module is the other half of the capacity contract: when either
-dense form exceeds :data:`max_dense_elems`, products are computed by
+The dense-routing SpGEMM (:mod:`csr_tpu.kernels.xla`) densifies B and
+the product C, which needs both to fit in memory.  This module is the
+other half of the capacity contract: when either dense form exceeds
+:data:`max_dense_elems`, products are computed by
 **expand-sort-compress** (ESC), the vector-hardware replacement for the
 reference's SMMP symbolic/numeric linked-list passes
 (reference: csr/kernels/numba/multiply.py:60-129):
@@ -91,10 +89,8 @@ def _expand(a_vals, a_cols, a_rids, b_rps, b_cols, b_vals, ex_cum,
     valid = t < n_valid
     # which A entry each triple expands from: scatter a 1 at each entry's
     # start offset and prefix-sum, instead of a vectorized binary search
-    # over ex_cum (searchsorted = ~log2(nnz_a) rounds of 16M-element
-    # gathers; the scatter is nnz_a-sized and the cumsum one pass —
-    # with the single-sort change below, 2.79x end-to-end on v5e,
-    # docs/perf.md round 4)
+    # over ex_cum (searchsorted = ~log2(nnz_a) rounds of full-size
+    # gathers; the scatter is nnz_a-sized and the cumsum one pass)
     assert nnz_a > 0  # _esc_rows returns early for empty A
     starts = jnp.concatenate([jnp.zeros(1, ex_cum.dtype), ex_cum[:-1]])
     ind = jnp.zeros(n_pad, jnp.int32).at[

@@ -10,8 +10,7 @@ mesh across hosts.
 Modules:
 
 * :mod:`~csr_tpu.parallel.partition` — nnz-balanced row partitioning.
-* :mod:`~csr_tpu.parallel.dist`      — portable XLA shard_map ops.
-* :mod:`~csr_tpu.parallel.mb_dist`   — production Pallas micro-block ops.
+* :mod:`~csr_tpu.parallel.dist`      — shard_map SpMV, SpMV-T and SpMM.
 * :mod:`~csr_tpu.parallel.ring`      — ppermute ring schedule with
   communication/compute overlap.
 """
@@ -34,12 +33,13 @@ def init_distributed(
 ):
     """Initialize multi-host JAX for this process.
 
-    Wraps ``jax.distributed.initialize`` (the TPU-era obligation SURVEY §5
+    Wraps ``jax.distributed.initialize`` (the obligation SURVEY §5
     assigns in place of the reference's nonexistent distributed backend).
-    With no arguments the standard autodetection applies (TPU pod
-    metadata, or the ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES``
-    / ``JAX_PROCESS_ID`` environment variables, which this wrapper also
-    reads explicitly so CPU test clusters behave identically).
+    The coordinator comes from the arguments or from the
+    ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` /
+    ``JAX_PROCESS_ID`` environment variables.  Without one, nothing is
+    initialized: a single host needs no cluster, and on a GPU host
+    ``jax.distributed.initialize()`` has nothing to detect a cluster from.
 
     Safe to call more than once (subsequent calls are no-ops) and safe in
     a single-process run with no coordinator configured (returns False).
@@ -62,25 +62,16 @@ def init_distributed(
 
     import jax
 
-    if coordinator_address is None and num_processes is None:
-        # No explicit coordinator: only TPU-pod autodetection could apply.
-        # Never attempt it on CPU/single-host — initialize() would block.
-        try:
-            on_tpu = jax.default_backend() not in ("cpu",)
-        except Exception:
-            on_tpu = False
-        if not on_tpu:
-            _log.debug("init_distributed: no coordinator, not a TPU pod; skipping")
-            return False
-        jax.distributed.initialize(**kwargs)
-    else:
-        jax.distributed.initialize(
-            coordinator_address=coordinator_address,
-            num_processes=num_processes,
-            process_id=process_id,
-            local_device_ids=local_device_ids,
-            **kwargs,
-        )
+    if coordinator_address is None:
+        _log.debug("init_distributed: no coordinator given; skipping")
+        return False
+    jax.distributed.initialize(
+        coordinator_address=coordinator_address,
+        num_processes=num_processes,
+        process_id=process_id,
+        local_device_ids=local_device_ids,
+        **kwargs,
+    )
     _initialized = True
     _log.info(
         "init_distributed: process %d/%d, %d local / %d global devices",

@@ -6,19 +6,18 @@ sharding exists only for kernel capacity.  Here row partitioning is a
 first-class parallel axis: matrices are row-sharded over ``mesh['rows']``
 (:mod:`csr_tpu.parallel.partition`), the dense operand is either
 replicated or column-sharded, and the collectives are XLA's
-(``all_gather`` / ``psum`` / ``psum_scatter``) riding ICI.
+(``all_gather`` / ``psum``) over the interconnect between devices.
 
 Operations:
 
 * ``spmv(dcsr, x)``      — ``y = A @ x``; x replicated or gathered, y row-sharded.
-* ``spmv_t(dcsr, y)``    — ``x = A^T @ y``; y row-sharded, result psum-reduced
-                           (or reduce-scattered over column shards).
+* ``spmv_t(dcsr, y)``    — ``x = A^T @ y``; y row-sharded, result psum-reduced.
 * ``spmm(dcsr, B)``      — ``C = A @ B`` with dense B; C row-sharded.
 * ``spmv_halo(dcsr, xs)``— x column-sharded; each device all-gathers the
                            halo slices it needs before local compute.
 
-Local per-device compute is the same segment-sum/micro-block kernels the
-single-chip backends use.
+Local per-device compute is the same segment-sum formulation the ``xla``
+kernel uses on one device.
 """
 
 from __future__ import annotations
@@ -80,11 +79,11 @@ def spmv(dcsr: DistCSR, x, mesh: Mesh, axis: str = "rows"):
 def spmv_halo(dcsr: DistCSR, x_sharded, mesh: Mesh, axis: str = "rows"):
     """``y = A @ x`` with x *column-sharded* over the same mesh axis.
 
-    Each device all-gathers the dense operand over ICI before local
-    compute — the halo-exchange form for matrices whose dense operand is
-    itself distributed (the generalization the reference's row sharding
-    points at, SURVEY §5 long-axis analog).  XLA overlaps the gather with
-    the leading compute where profitable.
+    Each device all-gathers the dense operand over the interconnect
+    before local compute — the halo-exchange form for matrices whose
+    dense operand is itself distributed (the generalization the
+    reference's row sharding points at, SURVEY §5 long-axis analog).  XLA
+    overlaps the gather with the leading compute where profitable.
     """
 
     @functools.partial(

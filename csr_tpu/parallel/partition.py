@@ -14,6 +14,7 @@ entries have value 0 and column 0, so they never affect results.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 
 import numpy as np
@@ -64,13 +65,21 @@ def balanced_col_splits(
     return np.maximum.accumulate(splits).astype(np.int64)
 
 
+@functools.partial(
+    jax.tree_util.register_dataclass,
+    data_fields=["rowptrs", "colinds", "values", "row_offset", "nrows_local"],
+    meta_fields=["nrows", "ncols", "nnz", "n_shards", "rows_per_shard",
+                 "nnz_per_shard"],
+)
 @dataclass
 class DistCSR:
     """A CSR matrix row-partitioned into ``n_shards`` padded shards.
 
     Arrays are stacked on a leading shard axis intended to be sharded over
     a mesh axis; ``row_offset[d]`` is the global row index of shard d's
-    first row.
+    first row.  A pytree whose shapes are static, so the distributed ops
+    can be jitted with it as an argument
+    (``jax.jit(dist.spmv, static_argnames=("mesh", "axis"))``).
     """
 
     nrows: int

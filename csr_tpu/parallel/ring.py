@@ -2,11 +2,11 @@
 Ring SpMV: column-sharded operand with communication/compute overlap.
 
 ``spmv_halo`` (csr_tpu/parallel/dist.py) all-gathers the whole dense
-operand before computing.  For large operands the TPU-idiomatic schedule
-is a **ring**: each device holds one column shard of ``x``; at step ``k``
-it multiplies the sub-matrix whose columns live in the shard it currently
-holds, while ``ppermute`` rotates shards around the ICI ring for the next
-step.  XLA overlaps the permute with the local segment-sum, hiding the
+operand before computing.  The alternative schedule is a **ring**: each
+device holds one column shard of ``x``; at step ``k`` it multiplies the
+sub-matrix whose columns live in the shard it currently holds, while
+``ppermute`` passes shards to the neighbouring device over the
+interconnect for the next step.  XLA overlaps the permute with the local segment-sum, hiding the
 halo exchange behind compute (the distributed generalization the
 reference's row sharding points at, SURVEY §5; reference sharding:
 csr/csr.py:599-650).
@@ -31,9 +31,17 @@ from jax import shard_map
 from .partition import balanced_col_splits, balanced_row_splits
 
 
+@functools.partial(
+    jax.tree_util.register_dataclass,
+    data_fields=["colinds", "values", "row_ids", "row_offset", "nrows_local",
+                 "col_offset"],
+    meta_fields=["nrows", "ncols", "nnz", "n_shards", "rows_per_shard",
+                 "cols_per_shard", "bucket_len"],
+)
 @dataclass
 class RingCSR:
-    """Row-sharded CSR with entries bucketed by source column shard."""
+    """Row-sharded CSR with entries bucketed by source column shard (a
+    pytree, like :class:`~csr_tpu.parallel.partition.DistCSR`)."""
 
     nrows: int
     ncols: int

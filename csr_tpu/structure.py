@@ -1,10 +1,10 @@
 """
-Structure manipulation for TPU CSR matrices.
+Structure manipulation for device CSR matrices.
 
 This module plays the role of the reference's ``csr/structure.py``, but the
 algorithms are XLA-first: instead of sequential counting-sort loops
-(reference: csr/structure.py:12-58) we use stable sorts, ``bincount`` and
-``segment_sum``, which XLA compiles to efficient fused TPU programs.
+(reference: csr/structure.py:12-58) we use sorts, ``bincount`` and
+``segment_sum``, which XLA compiles to fused device programs.
 
 All functions here are *functional*: they return new arrays.  In-place
 semantics of the public API (``CSR.sort_rows`` etc.) are provided at the
@@ -41,10 +41,9 @@ def _row_ids(rowptrs, nrows: int, nnz: int):
     Replaces the reference's sequential fill loop (csr/_rows.py:122-128).
     Formulation: scatter-add a 1 at each interior row boundary position
     (``rowptrs[1:nrows]``; empty rows contribute duplicates) and
-    prefix-sum.  ``searchsorted`` is deliberately avoided — on TPU a
-    vectorized binary search lowers to ~log2(nrows) rounds of nnz-sized
-    gathers and measures ~100x slower than the nrows-sized scatter + one
-    cumsum at 10M nnz (docs/perf.md round 4, ESC/transpose rewrites)."""
+    prefix-sum.  ``searchsorted`` is avoided: a vectorized binary search
+    lowers to ~log2(nrows) rounds of nnz-sized gathers, where this is one
+    nrows-sized scatter and one cumsum."""
     if nnz == 0:
         return jnp.zeros(0, dtype=jnp.int32)
     from .dtypes import x64_scope
@@ -234,17 +233,24 @@ def filter_nnzs_arrays(csr, filt):
     """
     filt = jnp.asarray(filt, dtype=bool)
     nnz2 = int(jnp.sum(filt))
+    rps2, cis2, vs2 = _filter_compact(
+        csr.rowptrs, csr.colinds, csr.values, filt, csr.nrows, nnz2
+    )
+    return rps2, cis2, vs2, nnz2
+
+
+@functools.partial(jax.jit, static_argnames=("nrows", "nnz2"))
+def _filter_compact(rowptrs, colinds, values, filt, nrows: int, nnz2: int):
     keep = jnp.nonzero(filt, size=nnz2)[0]
-    rids = row_ids_for(csr)
+    rids = _row_ids(rowptrs, nrows, colinds.shape[0])
     counts = jax.ops.segment_sum(
-        filt.astype(big_int()), rids, num_segments=csr.nrows,
+        filt.astype(big_int()), rids, num_segments=nrows,
         indices_are_sorted=True,
     )
-    rps2 = jnp.zeros(csr.nrows + 1, dtype=big_int())
+    rps2 = jnp.zeros(nrows + 1, dtype=big_int())
     rps2 = rps2.at[1:].set(jnp.cumsum(counts))
-    cis2 = csr.colinds[keep]
-    vs2 = None if csr.values is None else csr.values[keep]
-    return rps2.astype(ptr_dtype(nnz2)), cis2, vs2, nnz2
+    vs2 = None if values is None else values[keep]
+    return rps2.astype(ptr_dtype(nnz2)), colinds[keep], vs2
 
 
 def assemble_shards_arrays(shards):

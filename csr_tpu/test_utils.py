@@ -10,20 +10,21 @@ project's pipeline: pick a shape, scatter unique cells over the grid in
 row-major order, attach FTZ-safe values, and construct through
 :meth:`csr_tpu.CSR.from_coo`.
 
-TPU-specific deviations from the reference envelope:
+Deviations from the reference envelope:
 
-* subnormal values are excluded globally — XLA/TPU arithmetic flushes
-  them to zero, so ``x != 0`` can disagree with a stored subnormal;
+* subnormal values are excluded globally — accelerator arithmetic may
+  flush them to zero, so ``x != 0`` can disagree with a stored subnormal;
 * f8 values are only drawn when ``jax_enable_x64`` is active, since
   without it every array silently narrows to f4.
 """
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import scipy.sparse as sps
 
-import psutil
 from hypothesis import HealthCheck, settings
 import hypothesis.strategies as st
 import hypothesis.extra.numpy as nph
@@ -175,4 +176,5 @@ def csr_slow(divider: int = 2):
 
 def has_memory(req_gb: float = 32) -> bool:
     """Gate for tests needing ``req_gb`` GiB of host RAM."""
-    return psutil.virtual_memory().total >= req_gb * 1024**3
+    total = os.sysconf("SC_PAGE_SIZE") * os.sysconf("SC_PHYS_PAGES")
+    return total >= req_gb * 1024**3

@@ -2,18 +2,15 @@
 Debug guards: catching silent host↔device transfers.
 
 The reference's "sanitizer" story is thread-safety by construction plus
-MKL's hard aborts (SURVEY §5); the TPU-era hazard class is different:
-*silent device↔host transfers* (a host numpy touch of an HBM array stalls
-the pipeline and, on remote runtimes, round-trips the tunnel).  This
-module wraps JAX's transfer guard as a context manager scoped to sparse
-workloads.
+MKL's hard aborts (SURVEY §5); on an accelerator the hazard class is
+different: *silent device↔host transfers* (a host numpy touch of a device
+array stalls the pipeline).  This module wraps JAX's transfer guard as a
+context manager scoped to sparse workloads.
 
-Determinism note: all reductions in the xla kernel use
-``segment_sum(..., indices_are_sorted=True)`` over row-major-sorted
-entries, and the Pallas kernels accumulate in a fixed micro-row order, so
-results are bitwise-reproducible run to run on the same device — the
-analog of the reference's fixed flat-loop accumulation order
-(reference: csr/kernels/numba/__init__.py:55-67).
+Determinism note: the xla kernel's reductions (``segment_sum``, scatter-add)
+are reproducible on the CPU, but on a GPU XLA may lower them to atomic
+adds whose order, and so whose last bits, change from run to run.  Compare
+results with the bounds of :mod:`csr_tpu.utils.tolerance`, not bitwise.
 """
 
 from __future__ import annotations
@@ -50,9 +47,9 @@ def check_handle_leaks(strict: bool = True):
     alloc/free tracing, tasks.py:49-51), as a checkable invariant instead
     of stderr logs to eyeball.
 
-    Device handles here hold HBM references (micro-block layouts, dense
-    panels); a leaked handle in a long-running serving loop pins device
-    memory the same way a leaked MKL handle pinned host memory.
+    Device handles here hold device arrays (the expanded row ids); a
+    leaked handle in a long-running serving loop pins device memory the
+    same way a leaked MKL handle pinned host memory.
 
     Example::
 

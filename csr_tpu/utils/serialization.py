@@ -3,7 +3,7 @@ Checkpoint / serialization for CSR matrices.
 
 The reference's only persistence is pickling (reference: csr/csr.py:690-692,
 tests/test_pickle.py).  Pickle works here too (the CSR ``__reduce__``
-round-trips through host arrays); this module adds the TPU-era options:
+round-trips through host arrays); this module adds two more:
 
 * :func:`save_npz` / :func:`load_npz` — portable single-file archive,
   scipy-``save_npz``-compatible field names plus a marker for

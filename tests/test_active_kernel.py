@@ -36,9 +36,10 @@ def test_use_kernel_restores():
 
 
 def test_reference_aliases():
-    """Reference kernel names map onto our backends."""
+    """Reference kernel names map onto our backends: both the reference's
+    portable and vendor kernels resolve to ``xla``."""
     assert get_kernel("numba").__name__.endswith("xla")
-    assert get_kernel("mkl").__name__.endswith("pallas")
+    assert get_kernel("mkl").__name__.endswith("xla")
 
 
 def test_unknown_kernel():
@@ -49,7 +50,9 @@ def test_unknown_kernel():
 def test_kernel_module_contract():
     """Every backend exposes the full 8-symbol contract
     (reference: docs/kernels.rst)."""
-    for name in ("scipy", "xla", "pallas"):
+    from csr_tpu.kernels import AVAILABLE
+
+    for name in AVAILABLE:
         k = get_kernel(name)
         for sym in (
             "to_handle", "from_handle", "release_handle", "order_columns",
@@ -96,3 +99,28 @@ def test_guard_transfers():
         _ = dev * two  # pure device compute is fine
         with pytest.raises(Exception):
             _ = dev + np.arange(4.0)  # implicit host transfer must raise
+
+
+@pytest.mark.parametrize("backend", ["gpu", "cpu"])
+def test_default_kernel_on_any_backend(monkeypatch, backend):
+    """The default kernel is ``xla`` whatever backend JAX reports."""
+    import jax
+
+    import csr_tpu.kernels as K
+
+    monkeypatch.delenv("CSR_KERNEL", raising=False)
+    monkeypatch.setattr(jax, "default_backend", lambda: backend)
+    monkeypatch.setattr(K, "__cached_default", None)
+    K._initialize()
+    assert K._default_kernel().__name__ == "csr_tpu.kernels.xla"
+
+
+def test_csr_kernel_pallas_raises(monkeypatch):
+    """``CSR_KERNEL=pallas`` names a removed backend: selecting it raises
+    an error that lists the available kernels."""
+    import csr_tpu.kernels as K
+
+    monkeypatch.setenv("CSR_KERNEL", "pallas")
+    monkeypatch.setattr(K, "__cached_default", None)
+    with pytest.raises(ImportError, match="available kernels: scipy, xla"):
+        K._initialize()

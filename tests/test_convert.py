@@ -53,7 +53,7 @@ def test_normalize(csr):
 
 
 def test_bcoo_roundtrip():
-    """BCOO (JAX-native sparse) interop, the TPU-era analog of the
+    """BCOO (JAX-native sparse) interop, the JAX-side analog of the
     reference's scipy round-trip (reference: tests/test_convert.py)."""
     import numpy as np
     import scipy.sparse as sps

@@ -13,9 +13,11 @@ import pytest
 from hypothesis import given, settings
 import hypothesis.strategies as st
 
-from csr_tpu.parallel import dist
+import chip_smoke
+from csr_tpu.parallel import dist, ring
 from csr_tpu.parallel.partition import balanced_row_splits, make_mesh, partition_rows
 from csr_tpu.test_utils import csrs
+from csr_tpu.utils import tolerance
 from util import assert_spmv_close, to_dense
 
 needs_devices = pytest.mark.skipif(
@@ -124,7 +126,7 @@ def test_dist_spmm():
 @needs_devices
 def test_ring_spmv():
     """Ring-scheduled SpMV: column shards rotate via ppermute, compute
-    overlaps communication (BASELINE config: halo overlap)."""
+    overlaps communication."""
     import scipy.sparse as sps
 
     from csr_tpu.parallel import ring
@@ -184,173 +186,22 @@ def test_ring_buckets_nnz_balanced():
         np.testing.assert_allclose(yg, ref, rtol=1e-4, atol=1e-3)
 
 
-@needs_devices
-def test_ring_microblock_spmv():
-    """Production ring schedule: the held column-shard bucket runs the
-    Pallas micro-block kernel, selected via scalar prefetch - no switch
-    fan, no bucket copy (csr_tpu/parallel/mb_ring.py)."""
-    import scipy.sparse as sps
-
-    from csr_tpu import CSR
-    from csr_tpu.parallel import mb_ring
-
-    rng = np.random.default_rng(11)
-    m = sps.random(900, 1100, 0.04, format="csr", random_state=rng,
-                   dtype=np.float32)
-    csr = CSR.from_scipy(m)
-    n = min(len(jax.devices()), 8)
-    mesh = make_mesh(n)
-    rmb = mb_ring.partition_ring_mb(csr, n).shard(mesh)
-    x = rng.standard_normal(1100).astype(np.float32)
-    xs = mb_ring.scatter_x(rmb, x, mesh)
-    y = mb_ring.spmv_ring_mb(rmb, xs, mesh, interpret=True)
-    yg = np.asarray(mb_ring.collect_rows(rmb, y))
-    ref = np.asarray(m @ x)
-    np.testing.assert_allclose(yg, ref, rtol=1e-4, atol=1e-3)
-
-
-@needs_devices
-@given(st.data())
-@settings(max_examples=10, deadline=None)
-def test_ring_microblock_property(data):
-    """Ring micro-block SpMV parity on hypothesis draws (structure-only
-    matrices included; both window widths can arise via the chooser)."""
-    from csr_tpu.parallel import mb_ring
-
-    csr = data.draw(csrs(nrows=st.integers(8, 60)))
-    n = min(len(jax.devices()), 8)
-    mesh = make_mesh(n)
-    rmb = mb_ring.partition_ring_mb(csr, n).shard(mesh)
-    x = data.draw(
-        st.lists(
-            st.floats(-10, 10, allow_nan=False, width=32),
-            min_size=csr.ncols, max_size=csr.ncols,
-        )
+@pytest.mark.parametrize("n_dev", [1, 2, 4])
+@pytest.mark.parametrize("op", chip_smoke.MESH_OPS)
+def test_mesh_op_skewed(op, n_dev):
+    """Every mesh operation against scipy on a skewed matrix (1% of the
+    rows hold half the entries), jitted with the partitioned matrix as a
+    pytree argument, at each mesh size."""
+    if len(jax.devices()) < n_dev:
+        pytest.skip(f"needs {n_dev} devices")
+    rng = np.random.default_rng(n_dev)
+    n = 50 * n_dev
+    a, ref = chip_smoke.random_csr(
+        rng, n, n, chip_smoke.skewed_row_nnz(rng, n, n * 6)
     )
-    x = np.asarray(x, np.float32)
-    xs = mb_ring.scatter_x(rmb, x, mesh)
-    y = mb_ring.spmv_ring_mb(rmb, xs, mesh, interpret=True)
-    yg = np.asarray(mb_ring.collect_rows(rmb, y))
-    ref = to_dense(csr).astype(np.float64) @ x.astype(np.float64)
-    assert_spmv_close(yg, ref, csr, x)
-
-
-@needs_devices
-@pytest.mark.parametrize("window", [None, 128, 256])
-def test_dist_microblock_spmv(window):
-    """The production distributed path: per-shard Pallas micro-block
-    kernels under shard_map (replicated and halo operand forms)."""
-    import scipy.sparse as sps
-
-    from csr_tpu import CSR
-    from csr_tpu.parallel import mb_dist
-
-    rng = np.random.default_rng(5)
-    m = sps.random(700, 900, 0.05, format="csr", random_state=rng,
-                   dtype=np.float32)
-    csr = CSR.from_scipy(m)
-    n = min(len(jax.devices()), 8)
-    mesh = make_mesh(n)
-    dmb = mb_dist.partition_microblocks(csr, n, window=window).shard(mesh)
-    x = rng.standard_normal(900).astype(np.float32)
-    ref = m @ x
-
-    y = mb_dist.spmv(dmb, x, mesh, interpret=True)
-    yg = np.asarray(mb_dist.collect_rows(dmb, y))
-    np.testing.assert_allclose(yg, ref, rtol=1e-5, atol=1e-4)
-
-    xs = mb_dist.scatter_x(dmb, x, mesh)
-    yh = mb_dist.spmv_halo(dmb, xs, mesh, interpret=True)
-    yhg = np.asarray(mb_dist.collect_rows(dmb, yh))
-    np.testing.assert_allclose(yhg, ref, rtol=1e-5, atol=1e-4)
-
-
-@needs_devices
-@given(st.data())
-@settings(max_examples=10, deadline=None)
-def test_dist_microblock_property(data):
-    """Property-based parity of the distributed micro-block SpMV against
-    the dense oracle (hypothesis matrices, all shard counts)."""
-    from csr_tpu.parallel import mb_dist
-
-    csr = data.draw(csrs(nrows=st.integers(8, 60), values=True))
-    n = min(len(jax.devices()), 8)
-    mesh = make_mesh(n)
-    dmb = mb_dist.partition_microblocks(csr, n).shard(mesh)
-    x = data.draw(
-        st.lists(
-            st.floats(-10, 10, allow_nan=False, width=32),
-            min_size=csr.ncols, max_size=csr.ncols,
-        )
-    )
-    x = np.asarray(x, np.float32)
-    y = mb_dist.spmv(dmb, x, mesh, interpret=True)
-    yg = np.asarray(mb_dist.collect_rows(dmb, y))
-    ref = to_dense(csr).astype(np.float64) @ x.astype(np.float64)
-    assert_spmv_close(yg, ref, csr, x)
-
-
-@needs_devices
-def test_dist_microblock_spmv_t():
-    """Distributed transpose SpMV on the Pallas kernel: per-device
-    transposed shards + psum / psum_scatter (no dense scatter-add over
-    the column space)."""
-    import scipy.sparse as sps
-
-    from csr_tpu import CSR
-    from csr_tpu.parallel import mb_dist
-
-    rng = np.random.default_rng(13)
-    m = sps.random(700, 500, 0.05, format="csr", random_state=rng,
-                   dtype=np.float32)
-    csr = CSR.from_scipy(m)
-    n = min(len(jax.devices()), 8)
-    mesh = make_mesh(n)
-    dmb = mb_dist.partition_microblocks(csr, n).shard(mesh)
-    dmbt = mb_dist.partition_microblocks_t(csr, n).shard(mesh)
-    assert dmbt.rows_per_shard == dmb.rows_per_shard
-
-    x = rng.standard_normal(500).astype(np.float32)
-    y = mb_dist.spmv(dmb, x, mesh, interpret=True)  # (D, rows_per) sharded
-    ref_y = m @ x
-    ref = m.T @ ref_y
-
-    xt = np.asarray(mb_dist.spmv_t(dmbt, y, mesh, interpret=True))
-    np.testing.assert_allclose(xt, ref, rtol=1e-4, atol=1e-3)
-
-    xs = mb_dist.spmv_t(dmbt, y, mesh, interpret=True, scatter=True)
-    xsg = np.asarray(mb_dist.collect_cols_t(dmbt, xs))
-    np.testing.assert_allclose(xsg, ref, rtol=1e-4, atol=1e-3)
-
-
-@needs_devices
-@given(st.data())
-@settings(max_examples=10, deadline=None)
-def test_dist_microblock_t_property(data):
-    """Property-based parity of the distributed transpose micro-block
-    SpMV (structure-only matrices included)."""
-    from csr_tpu.parallel import mb_dist
-
-    csr = data.draw(csrs(nrows=st.integers(8, 60)))
-    n = min(len(jax.devices()), 8)
-    mesh = make_mesh(n)
-    dmb = mb_dist.partition_microblocks(csr, n).shard(mesh)
-    dmbt = mb_dist.partition_microblocks_t(csr, n).shard(mesh)
-    y = data.draw(
-        st.lists(
-            st.floats(-10, 10, allow_nan=False, width=32),
-            min_size=csr.nrows, max_size=csr.nrows,
-        )
-    )
-    y = np.asarray(y, np.float32)
-    # feed y through the row-sharded layout's padding scheme
-    ypad = np.zeros((n, dmb.rows_per_shard), np.float32)
-    off = dmb.row_offset
-    for d in range(n):
-        nl = int(dmb.nrows_local[d])
-        ypad[d, :nl] = y[int(off[d]) : int(off[d]) + nl]
-    xt = np.asarray(
-        mb_dist.spmv_t(dmbt, jnp.asarray(ypad), mesh, interpret=True)
-    )
-    ref = to_dense(csr).astype(np.float64).T @ y.astype(np.float64)
-    assert_spmv_close(xt, ref, csr.transpose(), y)
+    mesh = make_mesh(n_dev)
+    parts = {"rows": partition_rows(a, n_dev).shard(mesh),
+             "ring": ring.partition_ring(a, n_dev).shard(mesh)}
+    fn, args, gather, want, mass = chip_smoke.mesh_op(op, parts, ref, mesh,
+                                                      rng, k=3)
+    tolerance.check(gather(fn(*args)), want, mass, np.float32, op)

@@ -35,44 +35,6 @@ def test_max_nnz(kernel):
     assert k.max_nnz > 0
 
 
-def test_pallas_layout_cache_and_invalidation():
-    """Repeated high-level calls reuse the micro-block layout; in-place
-    mutation (sort_rows) invalidates it."""
-    import scipy.sparse as sps
-    import numpy as np
-
-    from csr_tpu import CSR
-    from csr_tpu.kernels import pallas as pk, use_kernel
-
-    rng = np.random.default_rng(2)
-    m = sps.random(300, 260, 0.05, format="csr", random_state=rng,
-                   dtype=np.float32)
-    csr = CSR.from_scipy(m)
-    x = rng.standard_normal(260).astype(np.float32)
-
-    with use_kernel("pallas"):
-        y1 = np.asarray(csr.mult_vec(x))
-        lay1 = csr._mb_layout_cache[3]
-        y2 = np.asarray(csr.mult_vec(x))
-        assert csr._mb_layout_cache[3] is lay1  # reused, not rebuilt
-        np.testing.assert_allclose(y1, y2)
-
-        csr.sort_rows()  # replaces colinds/values -> cache must miss
-        y3 = np.asarray(csr.mult_vec(x))
-        assert csr._mb_layout_cache[3] is not lay1
-        np.testing.assert_allclose(y3, m @ x, rtol=1e-4, atol=1e-4)
-
-        # explicit memory reclamation: drop_cache clears the matrix-side
-        # cache (the analog of the reference's eager MKL handle free,
-        # reference: csr/kernels/mkl/handle.py:144-148)
-        h = pk.to_handle(csr)
-        assert h.layout is not None
-        pk.release_handle(h, drop_cache=True)
-        assert csr._mb_layout_cache is None
-        y4 = np.asarray(csr.mult_vec(x))  # rebuilds transparently
-        np.testing.assert_allclose(y4, y3)
-
-
 def test_check_handle_leaks():
     """The leak checker counts to_handle/release_handle balance (the
     runtime analog of the reference's LK_TRACE leak debugging,

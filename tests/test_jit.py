@@ -1,7 +1,7 @@
 """
 CSR as a first-class citizen of JAX transforms.
 
-The TPU analog of the reference's Numba-mode suite (reference:
+The JAX analog of the reference's Numba-mode suite (reference:
 tests/test_numba.py, csr/_wiring.py): where the reference proves the CSR
 type works inside ``@njit`` nopython code, these tests prove the pytree
 registration makes CSR work across ``jax.jit`` boundaries and under

@@ -3,10 +3,10 @@ float64 / int64 parity under ``jax_enable_x64``.
 
 The reference's MKL path is float64-only (reference:
 csr/kernels/mkl/handle.py:69) and its tests assert f8 results at
-rel=1e-5, abs=1e-10 (reference: tests/test_multiply.py:44).  On TPU f64
-is emulated, so the framework treats x64 as an opt-in mode: these tests
-run inside ``jax.experimental.enable_x64`` and check full-precision
-behavior on the xla kernel, plus the int64-rowptr pickle round-trip
+rel=1e-5, abs=1e-10 (reference: tests/test_multiply.py:44).  JAX
+narrows to 32 bits unless x64 is enabled, so the framework treats x64 as
+an opt-in mode: these tests run inside ``jax.enable_x64`` and check
+full-precision behavior, plus the int64-rowptr pickle round-trip
 (reference: tests/test_pickle.py:28-47).
 """
 
@@ -60,62 +60,23 @@ def test_f64_multiply_precision(x64):
     np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-10)
 
 
-def _f64_contract_ops(m, c):
+def test_f64_contract_ops(x64):
+    """f64 through every contract op on the default kernel: the values stay
+    f64 end to end (the reference normalizes to f64 for MKL, reference:
+    csr/kernels/mkl/handle.py:69) and meet f64 tolerances."""
+    m = _mat(seed=8)
+    c = CSR.from_scipy(m)
     rng = np.random.default_rng(9)
     x = rng.standard_normal(c.ncols)
     v = rng.standard_normal(c.nrows)
     B = rng.standard_normal((c.ncols, 5))
-    with use_kernel("pallas"):
-        y = np.asarray(c.mult_vec(x))
-        g = np.asarray(c.mult_vec_t(v))
-        C = np.asarray(c.mult_dense(B))
+    y = np.asarray(c.mult_vec(x))
+    g = np.asarray(c.mult_vec_t(v))
+    C = np.asarray(c.mult_dense(B))
     assert y.dtype == g.dtype == C.dtype == np.float64
     np.testing.assert_allclose(y, m @ x, rtol=1e-5, atol=1e-10)
     np.testing.assert_allclose(g, m.T @ v, rtol=1e-5, atol=1e-10)
     np.testing.assert_allclose(C, m @ B, rtol=1e-5, atol=1e-10)
-
-
-def test_f64_pallas_dense_route(x64):
-    """The pallas backend's f64 policy (docs/kernels.md): above the
-    measured density breakeven, f64 work routes through the cached
-    densified-f64 form (emulated dense f64 beats the sparse f64
-    fallbacks ~2x on TPU) — full f64 tolerances through every
-    contract op."""
-    from csr_tpu.kernels import pallas
-
-    m = _mat(seed=8)  # density 0.2 >> _DENSIFY_MIN_DENSITY_F64
-    c = CSR.from_scipy(m)
-    assert pallas._dense_affordable(c, jnp.float64)
-    _f64_contract_ops(m, c)
-
-
-def test_f64_pallas_sparse_route(x64, monkeypatch):
-    """Below the f64 densify breakeven, f64 work routes to the XLA
-    sparse path — same results, same tolerances."""
-    from csr_tpu.kernels import pallas
-
-    monkeypatch.setattr(pallas, "_DENSIFY_MIN_DENSITY_F64", 1.1)
-    m = _mat(seed=8)
-    c = CSR.from_scipy(m)
-    assert not pallas._dense_affordable(c, jnp.float64)
-    _f64_contract_ops(m, c)
-
-
-def test_f64_multiply_pallas(x64):
-    """f64 SpGEMM on the pallas backend keeps f64 through the dense
-    intermediate (no silent f32 narrowing of B)."""
-    a = _mat(30, 40, seed=3)
-    b = _mat(40, 20, seed=4)
-    ca, cb = CSR.from_scipy(a), CSR.from_scipy(b)
-    with use_kernel("pallas"):
-        cc = ca.multiply(cb)
-        cct = ca.multiply(CSR.from_scipy(b.T.tocsr()), transpose=True)
-    ref = (a @ b).toarray()
-    assert cc.values.dtype == jnp.float64
-    np.testing.assert_allclose(cc.to_scipy().toarray(), ref,
-                               rtol=1e-5, atol=1e-10)
-    np.testing.assert_allclose(cct.to_scipy().toarray(), ref,
-                               rtol=1e-5, atol=1e-10)
 
 
 def test_f64_normalize_unit(x64):

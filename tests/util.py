@@ -6,7 +6,7 @@ import numpy as np
 def tols(*dtypes):
     """Comparison tolerances by value dtype (reference uses rel=1e-5,
     abs=1e-10 for f8, tests/test_multiply.py:44; f4 needs wider bounds
-    because TPU-path accumulation differs in order and precision)."""
+    because device accumulation differs in order and precision)."""
     if any(np.dtype(d) == np.float32 for d in dtypes):
         return dict(rtol=5e-4, atol=5e-3)
     return dict(rtol=1e-5, atol=1e-10)
@@ -23,43 +23,19 @@ def to_dense(csr):
     return csr.to_scipy().toarray()
 
 
-def assert_spmv_close(y, ref, csr, x, rtol=1e-4, eps_mult=384):
-    """SpMV comparison with an accumulation-aware f32 error bound.
+def assert_spmv_close(y, ref, csr, x):
+    """SpMV comparison under the accumulation-aware bound of
+    :mod:`csr_tpu.utils.tolerance`: per row, ``rtol * |ref|`` plus a
+    multiple of eps times the row's own L1 mass ``|A| @ |x|``.  A fixed
+    atol fails on catastrophic cancellation: a row of terms of magnitude
+    ~1e4 summing to ~1 carries an f32 error of ~1e4 * eps however it is
+    computed."""
+    from csr_tpu.utils import tolerance
 
-    A fixed atol fails on catastrophic cancellation: a row of terms with
-    magnitude ~1e4 summing to ~1 carries an f32 error of ~1e4 * eps no
-    matter how it is computed.  The error is bounded per row by an L1
-    norm of contributions — but not the row's OWN L1 alone: the
-    micro-block kernel computes row sums as differences of prefix sums
-    over 128-entry micro-rows that pack SEVERAL rows of one aligned
-    128-row window, so a row's error scales with the L1 mass of its
-    whole window (observed: ~100 eps * window-L1 on adversarial
-    hypothesis draws).  Use a sliding 128-row window sum, which upper
-    bounds any alignment (including per-shard rebased windows in the
-    distributed layouts).
-
-    ``eps_mult=384``: the kernel's two-pass bf16 prefix split carries a
-    worst-case per-row error of 2^-17 * row L1 = 128 * f32-eps * L1
-    (csr_tpu/ops/spmv.py stage 3); 384 leaves 3x headroom over that plus
-    the f32 accumulation itself."""
     row_l1 = np.abs(to_dense(csr)).astype(np.float64) @ np.abs(
         np.asarray(x, np.float64)
     )
-    # win_l1[r] = sum of row_l1 over [r-127, r+127]: an upper bound on the
-    # L1 of every 128-row window containing row r, any alignment
-    cum = np.concatenate([[0.0], np.cumsum(row_l1)])
-    n = len(row_l1)
-    idx = np.arange(n)
-    win_l1 = cum[np.minimum(idx + 128, n)] - cum[np.maximum(idx - 127, 0)]
-    eps = float(np.finfo(np.float32).eps)
-    ref = np.asarray(ref, np.float64)
-    tol = rtol * np.abs(ref) + eps_mult * eps * win_l1 + 1e-6
-    err = np.abs(np.asarray(y, np.float64) - ref)
-    bad = err > tol
-    assert not np.any(bad), (
-        f"SpMV mismatch at rows {np.flatnonzero(bad)[:10]}: "
-        f"err={err[bad][:10]} tol={tol[bad][:10]}"
-    )
+    tolerance.check(y, ref, row_l1, np.float32, "SpMV")
 
 
 def assert_csr_close(actual, expect_dense, **kw):
